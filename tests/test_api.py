@@ -268,21 +268,22 @@ def test_asd_pocs_fused_matches_host_loop():
 
 
 def test_fista_fused_respects_strict_config(monkeypatch):
-    """fista(fused=True) must NOT take the Pallas slice-last fast path
-    when the user forced strict verification modes (projector 'gather' /
-    tv 'xla') — review finding: the SL driver hard-codes Pallas kernels."""
+    """fista(fused=True) traces the projector the user configured: with
+    projector mode 'gather' forced, the fused driver must run the gather
+    form, not the platform's default family."""
     from tomojax import config as tjconfig
-    import tomojax.solvers as solvers_mod
+    from tomojax.projector import joseph
 
     ts, _ = _series()
-    called = {"sl": False}
-    real = solvers_mod.fista_run_sl
+    called = {"gather": 0, "mxu": 0}
+    for name, key in (("_fp_branch", "gather"), ("_fp_branch_mxu", "mxu")):
+        real = getattr(joseph, name)
 
-    def spy(*a, **k):
-        called["sl"] = True
-        return real(*a, **k)
+        def spy(*a, _real=real, _key=key, **k):
+            called[_key] += 1
+            return _real(*a, **k)
 
-    monkeypatch.setattr(solvers_mod, "fista_run_sl", spy)
+        monkeypatch.setattr(joseph, name, spy)
     try:
         tjconfig.set_projector_mode("gather")
         t = TomoTPU(ANGLES, ts, mesh=None)
@@ -290,7 +291,7 @@ def test_fista_fused_respects_strict_config(monkeypatch):
         t.fista(Niter=2, lambda_param=0.01, fused=True)
     finally:
         tjconfig.set_projector_mode("auto")
-    assert not called["sl"]
+    assert called["gather"] > 0 and called["mxu"] == 0
     assert np.isfinite(t.cost).all()
 
 

@@ -238,45 +238,92 @@ def test_sharded_fusion_4d_sart(mesh):
     assert np.isclose(float(cc), float(cc_ref), rtol=1e-4)
 
 
-def test_sharded_fista_full_pallas_path(mesh, problem):
-    """The complete sharded FISTA iteration with BOTH shard_map fast
-    paths engaged (per-shard Pallas FP/BP + per-shard Pallas FGP with
-    ppermute halos) matches the default sharded run — the pod-ready
-    configuration compiles and is numerically equivalent."""
+@pytest.mark.parametrize("iters", [1, 4, 7])
+def test_sharded_fgp_matches_unsharded(mesh, iters):
+    """FGP on a slab-sharded volume: the slice/concat stencils partition
+    into halo collective-permutes (the reference's MPI halo ring,
+    mpi_astra_ctvlib.cpp:360-386) and reproduce the unsharded result."""
+    rng = np.random.default_rng(9)
+    x = jnp.asarray(rng.normal(size=(16, 16, 16)).astype(np.float32)) + 0.5
+    ref, tv_ref = tvmod.tv_fgp(x, iters, 0.2)
+    got, tv_got = jax.jit(lambda v: tvmod.tv_fgp(v, iters, 0.2))(
+        dist.shard_volume(x, mesh))
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               rtol=1e-6, atol=1e-6)
+    assert np.isclose(float(tv_got), float(tv_ref), rtol=1e-5)
+
+
+@pytest.mark.parametrize("field", ["random", "wrap_seam"])
+def test_sharded_tv_gd_matches_unsharded(mesh, field):
+    """TV-GD on a slab-sharded volume: periodic halo ring across the slabs
+    and a global norm (the documented deviation, SURVEY.md §3.3). The
+    wrap-seam field jumps between planes nz-1 and 0, so a wrong halo
+    would show."""
+    if field == "random":
+        rng = np.random.default_rng(11)
+        x = rng.normal(size=(16, 16, 16)).astype(np.float32) + 0.5
+    else:
+        x = np.ones((16, 8, 8), np.float32)
+        x[0], x[-1] = 4.0, -2.0
+    x = jnp.asarray(x)
+    ref, tv_ref = tvmod.tv_gd(x, 5, 0.07)
+    got, tv_got = jax.jit(lambda v: tvmod.tv_gd(v, 5, 0.07))(
+        dist.shard_volume(x, mesh))
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               rtol=1e-5, atol=1e-6)
+    assert np.isclose(float(tv_got), float(tv_ref), rtol=1e-5)
+
+
+def test_sharded_4d_tv_matches_unsharded(mesh):
+    """4D chemistry TV (FGP + GD) sharded on the slice axis (axis 1)
+    matches the unsharded run (reference multi-GPU per-element 4D TV,
+    chemistry tv_fgp.cu:192-287 / multigpufusion.cpp)."""
+    rng = np.random.default_rng(14)
+    x = jnp.asarray(rng.normal(size=(3, 16, 16, 16)).astype(np.float32)) + 0.5
+    ref_f, tvf = tvmod.tv_fgp_4d(x, 4, 0.15)
+    ref_g, tvg = tvmod.tv_gd_4d(x, 4, 0.05)
+    xs = jax.device_put(x, NamedSharding(mesh, P(None, "z", None, None)))
+    got_f, tvf2 = jax.jit(lambda v: tvmod.tv_fgp_4d(v, 4, 0.15))(xs)
+    got_g, tvg2 = jax.jit(lambda v: tvmod.tv_gd_4d(v, 4, 0.05))(xs)
+    np.testing.assert_allclose(np.asarray(got_f), np.asarray(ref_f),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(got_g), np.asarray(ref_g),
+                               rtol=1e-5, atol=1e-6)
+    assert np.isclose(float(tvf2), float(tvf), rtol=1e-5)
+    assert np.isclose(float(tvg2), float(tvg), rtol=1e-5)
+
+
+def test_sharded_fista_run_matches_unsharded(mesh, problem):
+    """`fista_run` (the one scanned FISTA driver) under a mesh scope on
+    slab-sharded data == the unsharded host-loop steps; the state keeps
+    the slab sharding."""
     from tomojax import config as tjconfig
-    from tomojax.solvers import fista_init, fista_step
+    from tomojax.solvers import fista_run
 
     geom, sysd, gt, b = problem
     ref_st = fista_init(jnp.zeros_like(gt), sysd)
     step_ref = jax.jit(lambda s, bb: fista_step(s, bb, sysd, 0.1, 4, True))
+    ref_metrics = []
     for _ in range(3):
-        ref_st, (cost_ref, dd_ref, tv_ref) = step_ref(ref_st, b)
-
-    try:
-        tjconfig.set_mesh(mesh)
-        tjconfig.set_projector_mode("pallas")
-        tjconfig.set_tv_impl("pallas", dual_dtype=jnp.float32)
+        ref_st, m = step_ref(ref_st, b)
+        ref_metrics.append([float(v) for v in m])
+    with tjconfig.mesh_scope(mesh):
         bs = dist.shard_volume(b, mesh)
         st = fista_init(dist.shard_volume(jnp.zeros_like(gt), mesh), sysd)
-        step = jax.jit(lambda s, bb: fista_step(s, bb, sysd, 0.1, 4, True))
-        for _ in range(3):
-            st, (cost, dd, tvv) = step(st, bs)
-    finally:
-        tjconfig.set_mesh(None)
-        tjconfig.set_projector_mode("auto")
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.bfloat16)
+        st, metrics = jax.jit(
+            lambda s, bb: fista_run(s, bb, sysd, 0.1, 3, 4, True))(st, bs)
+    assert st.x.sharding.is_equivalent_to(
+        NamedSharding(mesh, P("z", None, None)), 3)
     np.testing.assert_allclose(np.asarray(st.x), np.asarray(ref_st.x),
                                rtol=1e-4, atol=1e-5)
-    assert np.isclose(float(dd), float(dd_ref), rtol=1e-4)
-    assert np.isclose(float(tvv), float(tv_ref), rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(metrics), np.asarray(ref_metrics),
+                               rtol=1e-4)
 
 
-def test_sharded_asd_pocs_full_pallas_path(mesh, problem):
-    """Sharded ASD-POCS with ALL shard_map fast paths engaged (per-shard
-    Pallas FP/BP + per-shard Pallas TV-GD with the periodic ppermute
-    halo ring) matches the unsharded run — the reference's flagship MPI
-    workload (mpi_ctvlib.cpp:495-558, examples/sim_ASD.py) now runs
-    fused kernels end-to-end under a mesh."""
+def test_sharded_asd_pocs_matches_unsharded(mesh, problem):
+    """Sharded ASD-POCS (SART sweep + TV-GD halo ring + psum'd metrics,
+    the reference's flagship MPI workload, mpi_ctvlib.cpp:495-558)
+    matches the unsharded run."""
     from tomojax import config as tjconfig
     from tomojax.solvers import make_asd_pocs_iteration, make_sart_weights
 
@@ -298,98 +345,16 @@ def test_sharded_asd_pocs_full_pallas_path(mesh, problem):
                 dpocs *= 0.95
         return x, dds
 
-    run_ref = make_asd_pocs_iteration(sysd, sart_w, ng=4)
-    x_ref, dd_ref = drive(run_ref, jnp.zeros_like(gt), b)
-
-    try:
-        tjconfig.set_projector_mode("pallas")
-        tjconfig.set_tv_impl("pallas")
-        with tjconfig.mesh_scope(mesh):
-            run = make_asd_pocs_iteration(sysd, sart_w, ng=4)
-            x, dd = drive(
-                run,
-                dist.shard_volume(jnp.zeros_like(gt), mesh),
-                dist.shard_volume(b, mesh),
-            )
-    finally:
-        tjconfig.set_projector_mode("auto")
-        tjconfig.set_tv_impl("auto")
-    # Tolerance note: the normalized TV subgradient divides by
-    # denominators ~sqrt(EPS_TV)=1e-3 in flat regions, so ulp-level
-    # kernel/reduction-order differences amplify ~1e3x per descent step;
-    # measured drift of the SINGLE-device Pallas TV-GD vs the XLA
-    # stencil through this same 3-iteration composition is 1.2e-3.
-    # Per-step kernel equality is pinned tightly (3e-5) in
-    # test_pallas_tv.py::test_sharded_tvgd_matches_unsharded.
-    np.testing.assert_allclose(np.asarray(x), np.asarray(x_ref),
-                               atol=2e-3)
+    x_ref, dd_ref = drive(make_asd_pocs_iteration(sysd, sart_w, ng=4),
+                          jnp.zeros_like(gt), b)
+    with tjconfig.mesh_scope(mesh):
+        x, dd = drive(make_asd_pocs_iteration(sysd, sart_w, ng=4),
+                      dist.shard_volume(jnp.zeros_like(gt), mesh),
+                      dist.shard_volume(b, mesh))
+    # the normalized TV subgradient divides by ~sqrt(EPS_TV) in flat
+    # regions, so reduction-order differences grow through the descent
+    np.testing.assert_allclose(np.asarray(x), np.asarray(x_ref), atol=2e-3)
     np.testing.assert_allclose(dd, dd_ref, rtol=1e-3)
-
-
-def test_sharded_pallas_sart_matches_unsharded(mesh, problem):
-    """Per-shard fused Pallas SART under shard_map (solver analog of the
-    shard_map projector): the ordered sweep of a slab-sharded volume
-    matches the unsharded kernel (SART couples slices only through TV,
-    which it doesn't touch — the reference's MPI slabs likewise)."""
-    from tomojax.solvers import make_sart_weights
-    from tomojax.solvers.pallas_sart import (
-        sart_sweep_pallas, sart_sweep_pallas_sharded,
-    )
-
-    geom, sysd, gt, b = problem
-    w = make_sart_weights(sysd)
-    rng = np.random.default_rng(2)
-    x0 = jnp.asarray(rng.random(gt.shape).astype(np.float32))
-    order = jnp.asarray(rng.permutation(geom.nproj).astype(np.int32))
-    ref = sart_sweep_pallas(
-        x0, b, geom, sysd.inv_row[0], w, beta=0.8, order=order,
-        interpret=True,
-    )
-    got = sart_sweep_pallas_sharded(
-        dist.shard_volume(x0, mesh), dist.shard_volume(b, mesh), geom,
-        sysd.inv_row[0], w, beta=0.8, order=order, mesh=mesh,
-    )
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=2e-5, atol=2e-5
-    )
-
-
-def test_sharded_fista_run_scan_pallas_path(mesh, problem):
-    """The POD-PRODUCTION program shape: `fista_run` scans >=3 FISTA
-    iterations into ONE traced program, composed with a mesh and BOTH
-    shard_map fast paths (per-shard Pallas FP/BP + per-shard Pallas FGP
-    with ppermute halos). This is what actually runs on a pod (the
-    reference analog is the whole MPI driver loop,
-    mpi_astra_ctvlib.cpp:211-231); round 2 had only per-step host-loop
-    coverage of the sharded composition."""
-    from tomojax import config as tjconfig
-    from tomojax.solvers import fista_init, fista_step, fista_run
-
-    geom, sysd, gt, b = problem
-    ref_st = fista_init(jnp.zeros_like(gt), sysd)
-    step_ref = jax.jit(lambda s, bb: fista_step(s, bb, sysd, 0.1, 4, True))
-    ref_metrics = []
-    for _ in range(3):
-        ref_st, m = step_ref(ref_st, b)
-        ref_metrics.append([float(v) for v in m])
-
-    try:
-        tjconfig.set_projector_mode("pallas")
-        tjconfig.set_tv_impl("pallas", dual_dtype=jnp.float32)
-        with tjconfig.mesh_scope(mesh):
-            bs = dist.shard_volume(b, mesh)
-            st = fista_init(dist.shard_volume(jnp.zeros_like(gt), mesh), sysd)
-            run = jax.jit(
-                lambda s, bb: fista_run(s, bb, sysd, 0.1, 3, 4, True)
-            )
-            st, metrics = run(st, bs)
-    finally:
-        tjconfig.set_projector_mode("auto")
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.bfloat16)
-    np.testing.assert_allclose(np.asarray(st.x), np.asarray(ref_st.x),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(metrics), np.asarray(ref_metrics),
-                               rtol=1e-4)
 
 
 def test_tv_gd_reference_mpi_compat(mesh):

@@ -69,7 +69,7 @@ def test_pytvlib_dispatch():
 
     assert "ram-lak" in pytvlib.wbp_filters()
     assert pytvlib.sart_orders() == ["sequential", "random"]
-    assert len(pytvlib.check_tpu()) >= 1
+    assert len(pytvlib.check_devices()) >= 1
 
 
 def test_iteration_meter():

@@ -268,269 +268,6 @@ def test_asd_pocs_fused_scan_matches_host_loop(tilt_problem):
     np.testing.assert_allclose(np.asarray(dd2), np.asarray(dds1), rtol=1e-3)
 
 
-def test_fista_sl_matches_slice_first():
-    """The slice-last fast path (zero in-loop layout transposes, SIRT
-    update fused into the BP kernel epilogue) is numerically the same
-    algorithm as fista_step: same iterates, same metrics."""
-    from tomojax.solvers import (
-        fista_init, fista_step, fista_init_sl, fista_run_sl, from_sl, to_sl,
-    )
-    from tomojax import config as tjconfig
-
-    ns, n, na = 8, 32, 15
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-70, 70, na)))
-    sysd = make_system(geom)
-    gt = jnp.asarray(np.stack([shepp_logan(n)] * ns), jnp.float32)
-    b = fp(gt, geom)
-
-    st = fista_init(jnp.zeros((ns, n, n), jnp.float32), sysd)
-    step = jax.jit(lambda s, bb: fista_step(s, bb, sysd, 0.05, 5, True))
-    ms = []
-    for _ in range(4):
-        st, m = step(st, b)
-        ms.append([float(v) for v in m])
-
-    # slice-first reference above ran whatever dispatch 'auto' picks on
-    # CPU (XLA ops, f32); the SL path runs interpret-mode pallas kernels —
-    # pin f32 duals so the comparison isn't dominated by the documented
-    # bf16 dual-storage knob (config.fgp_dual_dtype).
-    stl = fista_init_sl(jnp.zeros((ns, n, n), jnp.float32), sysd, to_sl(b))
-    run = jax.jit(
-        lambda s, bb: fista_run_sl(s, bb, sysd, 0.05, 4, 5, True)
-    )
-    try:
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.float32)
-        stl, msl = run(stl, to_sl(b))
-    finally:
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.bfloat16)
-    np.testing.assert_allclose(
-        np.asarray(from_sl(stl.x)), np.asarray(st.x), rtol=2e-4, atol=2e-5
-    )
-    np.testing.assert_allclose(np.asarray(msl), np.asarray(ms), rtol=2e-4)
-
-
-def test_fista_sl_momentum_false_beta0_path():
-    """momentum=False routes through the momentum program with a traced
-    beta=0 (round-3 VERDICT #5: the dedicated no-momentum scan variant
-    compiled pathologically on v5e); it must match the host-loop
-    momentum=False iterates exactly the way the momentum path does."""
-    from tomojax.solvers import (
-        fista_init, fista_step, fista_init_sl, fista_run_sl, from_sl, to_sl,
-    )
-    from tomojax import config as tjconfig
-
-    ns, n, na = 8, 32, 15
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-70, 70, na)))
-    sysd = make_system(geom)
-    gt = jnp.asarray(np.stack([shepp_logan(n)] * ns), jnp.float32)
-    b = fp(gt, geom)
-
-    st = fista_init(jnp.zeros((ns, n, n), jnp.float32), sysd)
-    step = jax.jit(lambda s, bb: fista_step(s, bb, sysd, 0.05, 5, False))
-    ms = []
-    for _ in range(4):
-        st, m = step(st, b)
-        ms.append([float(v) for v in m])
-
-    stl = fista_init_sl(jnp.zeros((ns, n, n), jnp.float32), sysd, to_sl(b))
-    run = jax.jit(
-        lambda s, bb: fista_run_sl(s, bb, sysd, 0.05, 4, 5, False)
-    )
-    try:
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.float32)
-        stl, msl = run(stl, to_sl(b))
-    finally:
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.bfloat16)
-    np.testing.assert_allclose(
-        np.asarray(from_sl(stl.x)), np.asarray(st.x), rtol=2e-4, atol=2e-5
-    )
-    np.testing.assert_allclose(np.asarray(msl), np.asarray(ms), rtol=2e-4)
-    # beta=0 really means no extrapolation: yk == x
-    np.testing.assert_array_equal(np.asarray(stl.yk), np.asarray(stl.x))
-
-
-def test_bp_sirt_epilogue_matches_composition():
-    """bp_pallas_sl(y_vol=, inv_col2d=) == max(y + C * A^T r, 0)."""
-    from tomojax.projector.pallas_joseph import bp_pallas_sl
-    from tomojax.solvers import to_sl, from_sl
-    from tomojax.projector.joseph import bp
-
-    ns, n, na = 6, 32, 12
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-60, 60, na)))
-    sysd = make_system(geom)
-    rng = np.random.default_rng(3)
-    r = jnp.asarray(rng.normal(size=(ns, na, n)).astype(np.float32))
-    y = jnp.asarray(rng.normal(size=(ns, n, n)).astype(np.float32))
-    ref = jnp.maximum(y + sysd.inv_col * bp(r, geom, mode="gather"), 0.0)
-    got = bp_pallas_sl(
-        to_sl(r), geom, interpret=True,
-        y_vol=to_sl(y), inv_col2d=sysd.inv_col[0],
-    )
-    np.testing.assert_allclose(
-        np.asarray(from_sl(got)), np.asarray(ref), rtol=2e-5, atol=2e-5
-    )
-
-
-def test_fista_sl_non_multiple_of_rb():
-    """The fused BP-SIRT epilogue must handle N not divisible by rb=32
-    (row-padded epilogue operands; regression for a trace-time assert)."""
-    from tomojax.solvers import (
-        fista_init, fista_step, fista_init_sl, fista_run_sl, from_sl, to_sl,
-    )
-    from tomojax import config as tjconfig
-
-    ns, n, na = 6, 40, 13  # 40 % 32 != 0
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-65, 65, na)))
-    sysd = make_system(geom)
-    gt = jnp.asarray(np.stack([shepp_logan(n)] * ns), jnp.float32)
-    b = fp(gt, geom)
-    st = fista_init(jnp.zeros((ns, n, n), jnp.float32), sysd)
-    step = jax.jit(lambda s, bb: fista_step(s, bb, sysd, 0.05, 3, True))
-    for _ in range(3):
-        st, m = step(st, b)
-    stl = fista_init_sl(jnp.zeros((ns, n, n), jnp.float32), sysd, to_sl(b))
-    try:
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.float32)
-        stl, msl = jax.jit(
-            lambda s, bb: fista_run_sl(s, bb, sysd, 0.05, 3, 3, True)
-        )(stl, to_sl(b))
-    finally:
-        tjconfig.set_tv_impl("auto", dual_dtype=jnp.bfloat16)
-    np.testing.assert_allclose(
-        np.asarray(from_sl(stl.x)), np.asarray(st.x), rtol=2e-4, atol=2e-5
-    )
-
-
-def test_sirt_pallas_fast_path_matches():
-    """The fused slice-last SIRT fast path (FP kernel + BP kernel with
-    the update+clamp epilogue) is the same ASTRA-SIRT iteration as the
-    XLA branch of sirt_sweep."""
-    from tomojax.solvers.iterative import _sirt_sweep_pallas_sl, sirt_sweep
-
-    ns, n, na = 5, 32, 11
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-68, 68, na)))
-    sysd = make_system(geom)
-    rng = np.random.default_rng(1)
-    x0 = jnp.asarray(rng.random((ns, n, n)).astype(np.float32))
-    b = fp(jnp.asarray(np.stack([shepp_logan(n)] * ns)), geom)
-    ref = sirt_sweep(x0, b, sysd, 3)  # CPU: XLA branch
-    got = _sirt_sweep_pallas_sl(x0, b, sysd, 3, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=2e-4, atol=2e-5
-    )
-
-
-def test_poisson_pallas_fast_path_matches():
-    """The Poisson-ML fast path (update+clamp fused into the BP
-    epilogue with a negative constant column scale) matches the XLA
-    branch: same iterate, same KL cost."""
-    from tomojax.solvers.iterative import (
-        _poisson_ml_step_pallas_sl, poisson_ml_step,
-    )
-
-    ns, n, na = 4, 32, 11
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-68, 68, na)))
-    sysd = make_system(geom)
-    rng = np.random.default_rng(4)
-    x0 = jnp.asarray(rng.random((ns, n, n)).astype(np.float32))
-    b = fp(jnp.asarray(np.stack([shepp_logan(n)] * ns)), geom)
-    b = b / jnp.max(b)
-    ref_x, ref_c = poisson_ml_step(x0, b, sysd, 0.1)
-    got_x, got_c = _poisson_ml_step_pallas_sl(x0, b, sysd, 0.1,
-                                              interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(got_x), np.asarray(ref_x), rtol=2e-4, atol=2e-5
-    )
-    assert float(got_c) == pytest.approx(float(ref_c), rel=2e-4)
-
-
-def test_pallas_sart_matches_xla_sweep():
-    """The fused Pallas SART (volume tile resident in VMEM across the
-    ordered angle loop, solvers/pallas_sart.py) is the same block-
-    Kaczmarz sweep as the XLA sart_sweep — sequential and random order,
-    relaxation beta, clamp per block."""
-    from tomojax.solvers import make_sart_weights
-    from tomojax.solvers.iterative import sart_sweep
-    from tomojax.solvers.pallas_sart import sart_sweep_pallas
-
-    ns, n, na = 5, 32, 9
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-70, 70, na)))
-    sysd = make_system(geom)
-    w = make_sart_weights(sysd)
-    rng = np.random.default_rng(0)
-    x0 = jnp.asarray(rng.random((ns, n, n)).astype(np.float32))
-    b = fp(jnp.asarray(np.stack([shepp_logan(n)] * ns)), geom)
-    for order in (None, jnp.asarray(rng.permutation(na).astype(np.int32))):
-        ref = sart_sweep(x0, b, sysd, w, beta=0.7, order=order)
-        got = sart_sweep_pallas(
-            x0, b, geom, sysd.inv_row[0], w, beta=0.7, order=order,
-            interpret=True,
-        )
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(ref), rtol=2e-4, atol=2e-5
-        )
-    # traced beta (the ASD-POCS composition decays beta inside jit)
-    stepped = jax.jit(
-        lambda bb: sart_sweep_pallas(
-            x0, b, geom, sysd.inv_row[0], w, beta=bb, interpret=True
-        )
-    )(jnp.float32(0.7))
-    ref = sart_sweep(x0, b, sysd, w, beta=0.7)
-    np.testing.assert_allclose(
-        np.asarray(stepped), np.asarray(ref), rtol=2e-4, atol=2e-5
-    )
-
-
-def test_resident_sart_converges_like_xla_sweep():
-    """Round-5 whole-volume-resident SART (solvers/pallas_sart.py
-    design note): engages when fits_resident holds (needs nray % 128
-    == 0, so n=128 here — the smaller tests above pin the windowed
-    kernel). Its dots run on bf16 operands, so single-sweep max-|d| on
-    arbitrary data is chaotic by construction (90 sequential clamped
-    updates); the correctness contract is CONVERGENCE: the same
-    reconstruction as the XLA sweep on a consistent problem. Both W
-    sources (per-geometry HBM tensor + in-kernel build) are pinned."""
-    from tomojax import config as tjconfig
-    from tomojax.solvers import make_sart_weights
-    from tomojax.solvers.iterative import sart_sweep
-    from tomojax.solvers.pallas_sart import (
-        fits_resident, sart_sweep_pallas,
-    )
-
-    ns, n, na = 64, 128, 8
-    assert fits_resident(n, ns, n)
-    assert not fits_resident(n, 8, n)  # thin slabs keep the windowed kernel
-    geom = Geometry.make(n, np.deg2rad(np.linspace(-70, 70, na)))
-    sysd = make_system(geom)
-    w = make_sart_weights(sysd)
-    ph = jnp.asarray(np.stack([shepp_logan(n)] * ns))
-    b = fp(ph, geom)
-    order = jnp.asarray(
-        np.random.default_rng(3).permutation(na).astype(np.int32)
-    )
-
-    def run(sweep_fn, nswp=5):
-        x = jnp.zeros((ns, n, n), jnp.float32)
-        for _ in range(nswp):
-            x = sweep_fn(x)
-        return float(jnp.sqrt(jnp.mean((x - ph) ** 2)))
-
-    ref = run(lambda x: sart_sweep(x, b, sysd, w, beta=0.7, order=order))
-    for mode in ("auto", "off"):
-        prev = tjconfig.sart_w_hbm
-        try:
-            tjconfig.set_sart_w_hbm(mode)
-            got = run(
-                lambda x: sart_sweep_pallas(
-                    x, b, geom, sysd.inv_row[0], w, beta=0.7,
-                    order=order, interpret=True,
-                )
-            )
-        finally:
-            tjconfig.sart_w_hbm = prev
-        assert got == pytest.approx(ref, abs=2e-3), (mode, got, ref)
-
-
 def test_fista_momentum_toggle_keeps_invariants(tilt_problem):
     """Toggling momentum across calls on the same state must keep the
     carried projections valid: ay == A yk and ax == A x_old at every
@@ -551,11 +288,10 @@ def test_fista_momentum_toggle_keeps_invariants(tilt_problem):
 
 def test_seed_fp_cache_keys_on_config_knobs(tilt_problem):
     """The cached seeding FP must key on every trace-time config knob the
-    projector dispatch reads (round-3 review finding: changing
-    mxu/pallas precision or banding after the first fista_init silently
-    reused a stale-precision seed)."""
-    from tomojax.solvers import fista_init, fista_init_sl, to_sl
-    from tomojax.solvers.fista import _seed_fp, _seed_fp_sl
+    projector dispatch reads (changing the matmul precision after the
+    first fista_init must not reuse a stale-precision seed)."""
+    from tomojax.solvers import fista_init
+    from tomojax.solvers.fista import _seed_fp
     from tomojax import config as tjconfig
 
     geom, sysd, ph, b = tilt_problem
@@ -564,25 +300,11 @@ def test_seed_fp_cache_keys_on_config_knobs(tilt_problem):
     size0 = _seed_fp.cache_info().currsize
     fista_init(x0, sysd)  # same knobs: no new entry, no re-trace
     assert _seed_fp.cache_info().currsize == size0
-    # snapshot BOTH precision knobs: set_projector_mode(precision=) writes
-    # mxu_precision AND pallas_precision, so restoring from the mxu value
-    # alone would leave pallas_precision at HIGHEST for the rest of the
-    # session (advisor finding, round 3: silently switched later tests off
-    # the default bf16 Pallas path)
-    prec_mxu, prec_pallas = tjconfig.mxu_precision, tjconfig.pallas_precision
+    prec = tjconfig.mxu_precision
     try:
-        tjconfig.set_projector_mode("auto", precision=jax.lax.Precision.HIGHEST)
+        tjconfig.set_projector_mode("auto", precision=jax.lax.Precision.HIGH)
         fista_init(x0, sysd)
         assert _seed_fp.cache_info().currsize == size0 + 1
     finally:
         tjconfig.projector_mode = "auto"
-        tjconfig.mxu_precision = prec_mxu
-        tjconfig.pallas_precision = prec_pallas
-
-    # slice-last seeding program: cached too (was a fresh jit per call)
-    b_sl = to_sl(b)
-    fista_init_sl(x0, sysd, b_sl)
-    s0 = _seed_fp_sl.cache_info()
-    fista_init_sl(x0, sysd, b_sl)
-    s1 = _seed_fp_sl.cache_info()
-    assert s1.currsize == s0.currsize and s1.hits == s0.hits + 1
+        tjconfig.mxu_precision = prec

@@ -8,6 +8,7 @@ FGP loop) so the JAX stencils can be checked exactly.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from tomojax import tv as tvmod
 
@@ -124,3 +125,117 @@ def test_tv_4d_per_element():
     for e in range(3):
         g3, _ = tvmod.tv_gd(jnp.asarray(x[e]), 2, 0.1)
         np.testing.assert_allclose(np.asarray(g4[e]), np.asarray(g3), atol=1e-6)
+
+
+def _np_tv_grad(x):
+    """Numpy port of the 4-term isotropic subgradient (tv_gd.cu:52-106,
+    intended math: periodic neighbors on every axis)."""
+    eps = 1e-6
+
+    def d_at(v):
+        return np.sqrt(eps + (v - np.roll(v, -1, 0)) ** 2
+                       + (v - np.roll(v, -1, 1)) ** 2
+                       + (v - np.roll(v, -1, 2)) ** 2)
+
+    d = d_at(x)
+    g = (3 * x - np.roll(x, -1, 0) - np.roll(x, -1, 1) - np.roll(x, -1, 2)) / d
+    for ax in range(3):
+        g = g + (x - np.roll(x, 1, ax)) / np.roll(d, 1, ax)
+    return g
+
+
+def _np_tv_gd(x, ng, dpocs):
+    for _ in range(ng):
+        g = _np_tv_grad(x)
+        x = x - dpocs * g / np.linalg.norm(g)
+    return np.maximum(x, 0.0)
+
+
+# iteration counts and shapes of the fused-kernel era's FGP cases
+FGP_CASES = [
+    (1, (6, 16, 16)), (3, (6, 16, 16)), (7, (6, 16, 16)),
+    (1, (8, 16, 16)), (4, (12, 16, 16)), (10, (16, 24, 24)),
+    (7, (5, 12, 12)), (3, (8, 16, 16)), (4, (8, 16, 16)),
+    (5, (8, 16, 16)), (9, (8, 16, 16)), (3, (12, 16, 16)),
+    (5, (12, 16, 16)), (9, (12, 16, 16)),
+]
+
+
+@pytest.mark.parametrize("iters,shape", FGP_CASES)
+def test_fgp_cases_match_numpy(iters, shape):
+    rng = np.random.default_rng(iters)
+    x = (rng.normal(size=shape) + 0.5).astype(np.float32)
+    got, tv0 = tvmod.tv_fgp(jnp.asarray(x), iters, 0.2)
+    want = _np_fgp(x.astype(np.float64), iters, 0.2)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5)
+    assert np.isclose(float(tv0), _np_tv(x.astype(np.float64)), rtol=1e-5)
+
+
+@pytest.mark.parametrize("iters,shape", [(5, (2, 8, 12, 12)),
+                                         (6, (3, 8, 12, 12))])
+def test_fgp_4d_matches_numpy_per_element(iters, shape):
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=shape) + 0.4).astype(np.float32)
+    got, tv0 = tvmod.tv_fgp_4d(jnp.asarray(x), iters, 0.15)
+    for e in range(shape[0]):
+        want = _np_fgp(x[e].astype(np.float64), iters, 0.15)
+        np.testing.assert_allclose(np.asarray(got[e]), want,
+                                   rtol=1e-5, atol=1e-5)
+    want_tv = sum(_np_tv(x[e].astype(np.float64)) for e in range(shape[0]))
+    assert np.isclose(float(tv0), want_tv, rtol=1e-5)
+
+
+def test_fgp_boundary_planes():
+    """Boundary planes (z=0 and z=nz-1) carry the zero-flux semantics."""
+    x = np.zeros((4, 8, 8), np.float32)
+    x[0], x[-1] = 1.0, 2.0
+    got, _ = tvmod.tv_fgp(jnp.asarray(x), 5, 0.1)
+    want = _np_fgp(x.astype(np.float64), 5, 0.1)
+    np.testing.assert_allclose(np.asarray(got), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 16), (3, 8, 16, 16)])
+def test_tv_value_cases(shape):
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=shape).astype(np.float32)
+    xs = x.reshape((-1,) + shape[-3:]).astype(np.float64)
+    want = sum(_np_tv(v) for v in xs)
+    assert np.isclose(float(tvmod.tv(jnp.asarray(x))), want, rtol=1e-5)
+
+
+def test_tv_value_wraps_periodically():
+    """Changing only plane 0 moves the TV term of plane nz-1 (periodic)."""
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(16, 16, 16)).astype(np.float32)
+    xb = x.copy()
+    xb[0] += 1.0
+    d_got = float(tvmod.tv(jnp.asarray(xb))) - float(tvmod.tv(jnp.asarray(x)))
+    d_want = _np_tv(xb.astype(np.float64)) - _np_tv(x.astype(np.float64))
+    assert np.isclose(d_got, d_want, rtol=1e-3)
+
+
+def test_tv_grad_matches_numpy():
+    x = _vol((6, 16, 16), 2)
+    np.testing.assert_allclose(np.asarray(tvmod._tv_grad(jnp.asarray(x))),
+                               _np_tv_grad(x.astype(np.float64)),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ng", [1, 5])
+def test_tv_gd_matches_numpy(ng):
+    x = _vol((6, 16, 16), 2)
+    got, tv0 = tvmod.tv_gd(jnp.asarray(x), ng, 0.3)
+    np.testing.assert_allclose(np.asarray(got),
+                               _np_tv_gd(x.astype(np.float64), ng, 0.3),
+                               atol=1e-5)
+    assert np.isclose(float(tv0), _np_tv(x.astype(np.float64)), rtol=1e-5)
+
+
+def test_tv_gd_periodic_seam():
+    """A field that jumps at the z wrap seam: plane 0 must see plane nz-1."""
+    x = np.ones((16, 8, 8), np.float32)
+    x[0], x[-1] = 4.0, -2.0
+    got, _ = tvmod.tv_gd(jnp.asarray(x), 3, 0.1)
+    np.testing.assert_allclose(np.asarray(got),
+                               _np_tv_gd(x.astype(np.float64), 3, 0.1),
+                               atol=1e-5)

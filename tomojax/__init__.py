@@ -1,4 +1,4 @@
-"""tomojax — TPU-native tomographic reconstruction framework.
+"""tomojax — tomographic reconstruction in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 jtschwar/tomo_TV ("tomofusion"): matched forward/back-projection for
@@ -12,8 +12,8 @@ reference tomofusion/gpu/utils/tomoengine.cpp:189-205 and
 mpi_astra_ctvlib.cpp:53-118), every per-iteration computation here is a
 single jitted XLA program over the whole (sharded) volume: the slice loop
 is a batched axis, halo exchange and reductions are XLA collectives over
-the device mesh, and the hot kernels are fused stencils / gathers with
-optional Pallas implementations.
+the device mesh, and the hot kernels are fused stencils / gathers, with
+the projector pair as Pallas kernels on the GPU.
 """
 
 from tomojax.geometry import Geometry
@@ -21,25 +21,22 @@ from tomojax.geometry import Geometry
 __version__ = "0.1.0"
 
 
-def enable_compilation_cache(directory: str | None = None) -> None:
-    """Persistent XLA compilation cache (big win on backends with slow
-    compile services). Called on import; TOMOJAX_NO_CACHE=1 disables."""
+def enable_compilation_cache() -> None:
+    """Persistent XLA compilation cache. Called on import.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here. Otherwise the cache lives in ``.jax_cache`` at the
+    root of the checkout (listed in .gitignore)."""
     import os
 
     import jax
 
-    if os.environ.get("TOMOJAX_NO_CACHE") == "1":
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    directory = directory or os.environ.get(
-        "TOMOJAX_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "tomojax-jax"),
-    )
-    try:
-        if jax.config.jax_compilation_cache_dir is None:
-            jax.config.update("jax_compilation_cache_dir", directory)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover — config name drift across versions
-        pass
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    jax.config.update("jax_compilation_cache_dir",
+                      os.path.join(root, ".jax_cache"))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 enable_compilation_cache()

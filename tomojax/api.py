@@ -9,7 +9,7 @@ reference README quickstart translates 1:1:
     tomo.fista(Niter=50, lambda_param=0.1)
     recon = tomo.get_recon()                   # (Nslice, Nray, Nray)
 
-Differences by design (TPU-native): there is no engine-object zoo
+Differences by design: there is no engine-object zoo
 (tomoengine vs multigpuengine vs mpi engine — reference
 reconstructor.py:23-29); one class runs on any `jax.sharding.Mesh`. Pass
 ``mesh=`` (or let it default to all local devices) and the volume is
@@ -225,14 +225,9 @@ class TomoTPU:
         self.restart_recon()
         if self._sart_w is None:
             self._sart_w = make_sart_weights(self.sys)
-        # the precomputed W tensor (resident 'hbm' sweep) rides as a jit
-        # ARGUMENT — see solvers.asd_pocs.make_asd_pocs_iteration's note
-        from tomojax.solvers.pallas_sart import sart_w_operand
-
-        w_op = sart_w_operand(self.geom, self.x.shape[0])
         step = jax.jit(
-            lambda x, b, order, w: sart_sweep(
-                x, b, self.sys, self._sart_w, beta, order, w_hbm=w
+            lambda x, b, order: sart_sweep(
+                x, b, self.sys, self._sart_w, beta, order
             )
         )
         seq = jnp.arange(self.geom.nproj, dtype=jnp.int32)
@@ -243,7 +238,7 @@ class TomoTPU:
             if init == "random":
                 self._order_key, sub = jax.random.split(self._order_key)
                 order = jax.random.permutation(sub, self.geom.nproj).astype(jnp.int32)
-            self.x = step(self.x, self.b, order, w_op)
+            self.x = step(self.x, self.b, order)
             if show_convergence:
                 self.cost[i] = float(ddj(self.x, self.b))
         self.recon = None
@@ -303,46 +298,11 @@ class TomoTPU:
         solvers/fista.py for the documented reference-compat deviation.
 
         fused=True scans all Niter iterations into ONE traced program
-        (solvers.fista_run — the pod-production shape, measured 16.2 vs
-        18.7 ms/iter on v5e at 256^3; one pathological compile that the
-        persistent cache absorbs). The host loop stays the default for
+        (solvers.fista_run). The host loop stays the default for
         interactive use."""
         self.restart_recon()
         self.cost = np.zeros(Niter, np.float32)
         if fused:
-            if (self.mesh is None
-                    and jax.default_backend() != "cpu"
-                    and _tjconfig.resolve_projector_mode() == "pallas"
-                    and _tjconfig.use_pallas_tv()):
-                # (Odd lane shapes compile fine: a cold N=104 scan
-                # measured 262 s — the same one-time scan pathology as
-                # any size, absorbed by the persistent cache.)
-                # single-device fast path: slice-last layout, fused BP
-                # epilogue (solvers/fista.py fista_run_sl). momentum=False
-                # routes through the SAME momentum program with a traced
-                # beta=0 (fista_step_sl) — the dedicated no-momentum scan
-                # variant compiled pathologically on v5e (185 ms/iter vs
-                # 15; diagnosis recorded in fista.py). CPU backends keep
-                # the XLA driver (interpret-mode pallas is a correctness
-                # tool, not a fast path).
-                from tomojax.solvers import (
-                    fista_init_sl, fista_run_sl, from_sl, to_sl,
-                )
-
-                b_sl = to_sl(self.b)
-                stl = fista_init_sl(self.x, self.sys, b_sl)
-                run = jax.jit(
-                    lambda st, b: fista_run_sl(
-                        st, b, self.sys, lambda_param, Niter, nTViter,
-                        momentum, compat, compute_metrics=show_convergence,
-                    )
-                )
-                stl, metrics = run(stl, b_sl)
-                if show_convergence:
-                    self.cost[:] = np.asarray(metrics)[:, 0]
-                self.x = from_sl(stl.x)
-                self.recon = None
-                return self
             from tomojax.solvers import fista_run
 
             st = fista_init(self.x, self.sys)
@@ -425,9 +385,7 @@ class TomoTPU:
             return self
         # Host-side adaptation loop (like the reference driver). The fully
         # fused scan variant (solvers.make_asd_pocs_run) is numerically
-        # equivalent but its nested-control-flow program compiles very
-        # slowly on some backends; the per-iteration host syncs here cost
-        # microseconds on a directly-attached TPU.
+        # equivalent; the host loop reads three scalars per iteration.
         run = make_asd_pocs_iteration(self.sys, self._sart_w, nTViter)
         seq = jnp.arange(self.geom.nproj, dtype=jnp.int32)
         beta, dpocs = beta0, 0.0

@@ -1,22 +1,28 @@
-"""Global performance knobs.
+"""Which kernel family runs on which platform, and the knobs of the XLA forms.
+
+This module is the one place that reads the JAX backend. Everything else
+asks `resolve_projector_mode`.
 
 projector_mode:
-  'mxu'    — one-hot interpolation-matrix contraction on the MXU (default;
-             ~2.5-3x faster than 'gather' on v5e at 256-class problems).
-             Operator error vs the exact gather path is ~1e-5 relative at
-             the default bf16x3 precision — far below the Joseph-vs-Siddon
-             discretization gap (~1e-3).
-  'gather' — 2-point gather formulation; exact transpose pair to f32
-             rounding. Use for strict adjointness (e.g. verification).
-  'pallas' — fused Pallas kernels (projector/pallas_joseph.py): same
-             banded-matrix MXU contraction as 'mxu' but with the
-             accumulator tile kept in VMEM instead of scanned through
-             HBM. Single-device TPU only (interpret-mode elsewhere, for
-             tests); adjoint to ~1e-6 rather than bitwise.
+  'auto'   — the platform's family (`PROJECTOR_FAMILY`): the Triton kernel
+             pair on a GPU, the XLA 'mxu' form on the CPU.
+  'triton' — Pallas kernels for the Triton route (projector/triton_joseph.py):
+             the gather form with the accumulator in registers. GPU only.
+             Measured on one H100 (400 W limit) at 256^3 x 90: FP 1.27 ms,
+             BP 1.19 ms, against 7.64 / 5.57 ms for 'gather' and
+             16.1 / 34.4 ms for 'mxu' at HIGH (scripts/compare_projectors.py).
+  'gather' — XLA 2-point gather form; exact transpose pair to f32
+             rounding. The strict-adjoint reference.
+  'mxu'    — XLA dense interpolation-matrix contraction at `mxu_precision`.
 
-mxu_precision: jax.lax.Precision for the MXU path —
-  DEFAULT (bf16 passes, fastest, ~1e-3 rel), HIGH (bf16x3, ~1e-5),
-  HIGHEST (f32, ~1e-6, ~1.6x slower than HIGH).
+A mode the platform cannot run raises; nothing falls back quietly.
+
+mxu_precision: the `jax.lax.Precision` of the 'mxu' projector and of the
+SART sweep's contractions. HIGHEST by default. On XLA:GPU, HIGH leaves the
+cuBLAS algorithm unset and runs TF32-class arithmetic: measured on an H100,
+'mxu' BP at HIGH has the same 3.0e-5 relative L2 error against 'gather' as
+DEFAULT, FP 1.8e-5; HIGHEST measured 3.6e-7 (FP) and 2.1e-7 (BP). The CPU
+backend computes float32 products in float32 whatever the setting.
 
 Set via `tomojax.config.set_projector_mode(...)` BEFORE building jitted
 steps (jit closures capture the mode at trace time).
@@ -24,54 +30,24 @@ steps (jit closures capture the mode at trace time).
 
 from __future__ import annotations
 
+from contextlib import contextmanager as _contextmanager
+
 import jax
 
+PROJECTOR_FAMILY = {"gpu": "triton", "cpu": "mxu"}
+_PLATFORMS = {"triton": ("gpu",), "gather": ("cpu", "gpu"), "mxu": ("cpu", "gpu")}
+
 projector_mode: str = "auto"
-mxu_precision = jax.lax.Precision.HIGH
-
-# Pallas projector kernel MXU precision. DEFAULT (plain bf16 passes) is
-# measured convergence-equivalent on the BASELINE FISTA-TV problem
-# (256^3 x 90, 20 iters: rmse 0.073433 vs 0.073435 at HIGH) at ~1.7x the
-# speed; the inexact-gradient error (~1e-3 operator-relative) is washed
-# out by the iteration and sits below the Joseph discretization gap.
-# Set to HIGH/HIGHEST (via set_projector_mode precision=) for strict
-# operator-level verification.
-pallas_precision = jax.lax.Precision.DEFAULT
-
-# fgp_dual_dtype: HBM storage dtype of the FGP dual fields P1..P3 between
-# fused-kernel iterations (tv/pallas_fgp.py). The dual-ball projection
-# keeps |P| <= 1 every iteration, so bfloat16 storage costs ~2^-9 relative
-# per dual term; six quantized terms enter each divergence and P is
-# re-quantized every iteration, so the worst case on the denoised volume
-# is ~lam*1e-2 absolute (measured lam*1.7e-2 after 10 iters — see
-# docs/ARCHITECTURE.md / scripts/measure_knobs.py) and cuts the FGP
-# kernel's HBM traffic ~40%. All arithmetic stays f32 in-register.
-# Measured convergence-equivalent on the BASELINE FISTA-TV problem (see
-# docs/ARCHITECTURE.md). Set to jnp.float32 for strict reference-f32
-# verification (tv_fgp.cu is f32 throughout).
-fgp_dual_dtype = "bfloat16"
-
-# tv_impl: 'auto' uses the fused Pallas FGP kernels on a single-device
-# non-CPU backend (1.9x at 256^3) and the XLA stencils otherwise (CPU,
-# multi-device meshes — where the rolls must lower to halo collectives).
-tv_impl: str = "auto"
+mxu_precision = jax.lax.Precision.HIGHEST
 
 # active_mesh: the slab mesh solver programs run under. Scoped, not
 # global: the API layer (TomoTPU/ChemicalTomo) wraps every method body in
 # `mesh_scope(self.mesh)`, so dispatch is per-reconstructor — two live
 # reconstructors with different meshes can't silently re-route each
-# other's kernels (an earlier design registered the mesh at construction
-# time, so the most recently constructed object won). On a TPU backend a
-# multi-device scope mesh routes FP/BP through shard_map-wrapped
-# per-shard Pallas kernels (projector/sharded.py) — measured 3.0x over
-# the XLA mxu scan per chip (4.87 vs 14.43 ms at 256^3 x 90 on v5e) with
-# zero shard_map overhead and zero cross-device traffic (the data term is
-# slice-parallel). Batches whose slice axis does not divide by the mesh
-# size fall back to the mxu formulation.
+# other's kernels. Under a multi-device mesh the Triton projector runs
+# per z-slab inside shard_map (a pallas_call has no partitioning rule);
+# the data term is slice-parallel, so no slab talks to another.
 active_mesh = None
-
-
-from contextlib import contextmanager as _contextmanager
 
 
 @_contextmanager
@@ -98,94 +74,33 @@ def set_mesh(mesh) -> None:
     active_mesh = mesh
 
 
-# sart_w_hbm: W source for the whole-volume-resident Pallas SART sweep
-# (solvers/pallas_sart.py round-5 design note). 'auto' precomputes the
-# per-geometry interpolation tiles into an HBM bf16 tensor (~2.9 GB at
-# 256^3 x 90, cached per geometry, capped by
-# pallas_sart.SART_W_HBM_BUDGET) and streams them by DMA — measured
-# 7.73 ms/sweep vs 10.49 for the in-kernel build and 22.2 for the
-# round-4 windowed kernel on v5e. 'off' forces the in-kernel build
-# (no HBM cost; e.g. when HBM is tight on a shared chip).
-sart_w_hbm: str = "auto"
-
-
-def set_sart_w_hbm(mode: str) -> None:
-    global sart_w_hbm
-    assert mode in ("auto", "off"), mode
-    sart_w_hbm = mode
-
-
-# banded_projector: tile-band skipping in the Pallas projector kernels
-# (projector/pallas_joseph.py "Banded tiling"). 'auto' enables it when
-# the window math says the banded FLOPs are <= 3/4 of the dense kernel's
-# (true from n=256 with the default block sizes; ~2x fewer FLOPs at 512);
-# 'on' forces it whenever structurally legal; 'off' keeps the dense
-# kernels (exact-bitwise round-2 behavior).
-banded_projector: str = "auto"
-
-
-def set_banded_projector(mode: str) -> None:
-    global banded_projector
-    assert mode in ("auto", "on", "off"), mode
-    banded_projector = mode
-
-
 def set_projector_mode(mode: str, precision=None):
-    global projector_mode, mxu_precision, pallas_precision
-    assert mode in ("auto", "mxu", "gather", "pallas"), mode
+    global projector_mode, mxu_precision
+    if mode != "auto" and mode not in _PLATFORMS:
+        raise ValueError(f"unknown projector mode {mode!r}")
     projector_mode = mode
     if precision is not None:
         mxu_precision = precision
-        pallas_precision = precision
+
+
+def platform() -> str:
+    """The JAX backend the next program compiles for ('cpu', 'gpu', ...)."""
+    return jax.default_backend()
 
 
 def resolve_projector_mode(mode: str | None = None) -> str:
-    """'auto' -> fused Pallas kernels on a non-CPU backend: direct when
-    single-device, shard_map-wrapped per z-slab when a multi-device mesh
-    is registered (set_mesh — the data term is slice-parallel so
-    per-shard kernels are legal). XLA 'mxu' elsewhere (CPU, or sharded
-    runs without a registered mesh)."""
+    """The projector form to trace: 'auto' maps the platform to its
+    family; an explicit mode is checked against the platform."""
     mode = mode or projector_mode
-    if mode != "auto":
-        return mode
-    if jax.default_backend() != "cpu" and (
-        jax.device_count() == 1 or active_mesh is not None
-    ):
-        return "pallas"
-    return "mxu"
-
-
-def set_tv_impl(impl: str, dual_dtype=None):
-    global tv_impl, fgp_dual_dtype
-    assert impl in ("auto", "xla", "pallas"), impl
-    tv_impl = impl
-    if dual_dtype is not None:
-        # Normalize/validate now so a typo fails here, not at the first
-        # tv_fgp_pallas_fused trace far from the config call.
-        import jax.numpy as jnp
-
-        fgp_dual_dtype = jnp.dtype(dual_dtype)
-
-
-def use_pallas_tv() -> bool:
-    if tv_impl == "xla":
-        return False
-    if tv_impl == "pallas":
-        return True
-    return jax.default_backend() != "cpu" and jax.device_count() == 1
-
-
-def sharded_pallas_tv_mesh(nz: int):
-    """The in-scope slab mesh when the shard_map TV kernels apply
-    (tv/pallas_fgp_sharded.py, pallas_tvgd_sharded.py): a mesh in scope
-    on a non-CPU backend (or forced 'pallas'), slice count divisible.
-    None otherwise. Size-1 meshes route through shard_map too (measured
-    zero overhead) so the pod program shape is compile-provable on one
-    real chip."""
-    if tv_impl == "xla" or active_mesh is None:
-        return None
-    if tv_impl != "pallas" and jax.default_backend() == "cpu":
-        return None
-    if nz % active_mesh.size:
-        return None
-    return active_mesh
+    plat = platform()
+    if mode == "auto":
+        if plat not in PROJECTOR_FAMILY:
+            raise RuntimeError(f"no projector family for platform {plat!r}")
+        return PROJECTOR_FAMILY[plat]
+    if mode not in _PLATFORMS:
+        raise ValueError(f"unknown projector mode {mode!r}")
+    if plat not in _PLATFORMS[mode]:
+        raise RuntimeError(
+            f"projector mode {mode!r} cannot run on platform {plat!r}"
+        )
+    return mode

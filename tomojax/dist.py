@@ -1,6 +1,6 @@
 """Distribution: device mesh, z-slab sharding, halo exchange, reductions.
 
-TPU-native replacement for the reference's entire distributed stack
+Replacement for the reference's entire distributed stack
 (SURVEY.md §2.3): the MPI slab decomposition (mpi_astra_ctvlib.cpp:53-64),
 ring halo exchange for the TV stencil (:360-386), MPI_Allreduce'd scalar
 metrics (:297-357), and OpenMP multi-GPU slice scheduling

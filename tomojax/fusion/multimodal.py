@@ -1,6 +1,6 @@
 """Fused multi-modal (HAADF + chemical) tomography engine.
 
-TPU-native re-design of the reference `multimodal` C++ engine
+Batched re-design of the reference `multimodal` C++ engine
 (chemistry/utils/multimodal.cpp, SURVEY.md N4/N5): the 4D reconstruction
 ``(Nel, Ns, N, N)`` is one sharded array; every per-slice host loop
 (poisson_ml :277-304, data_fusion :452-491, per-slice Eigen sigma matvecs)

@@ -5,7 +5,7 @@ volumes onto a synthetic HAADF volume
 (chemistry/utils/fusion_helper.py:5-32) and multiplies it with Eigen on the
 host inside the per-slice loop (multimodal.cpp:425-441). Structurally sigma
 is diagonal per pixel — HAADF pixel = sum over elements of w_e * voxel —
-so on TPU it is a weighted reduction over the element axis (an einsum), and
+so here it is a weighted reduction over the element axis (an einsum), and
 sigma^T is a broadcast: no sparse matrix exists anywhere (SURVEY.md §3.2
 design note).
 

@@ -126,7 +126,7 @@ def load_checkpoint(path: str):
 
 def save_sharded(directory: str, arrays: Dict):
     """Sharded checkpoint of jax arrays via orbax/tensorstore: each host
-    writes only its shards (the TPU equivalent of the reference's parallel
+    writes only its shards (the counterpart of the reference's parallel
     HDF5 hyperslab writes, mpi_astra_ctvlib.cpp:439-469)."""
     import orbax.checkpoint as ocp
 

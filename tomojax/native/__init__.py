@@ -4,7 +4,7 @@ This is the framework's native runtime layer, mirroring the role of the
 reference's C++ CPU engine (tomofusion/cpu/utils/ctvlib.cpp + the
 Python-side parallelRay generator): exact Siddon measurement matrix,
 OpenMP sparse FP/BP, row-action ART, Landweber/Cimmino SIRT, Poisson
-noise. The TPU path never needs it — it exists for (a) fast exact oracles
+noise. The accelerator path never needs it — it exists for (a) fast exact oracles
 in tests, (b) CPU-parity reconstruction (`CpuEngine`), (c) host-side
 pre/post-processing in streaming mode.
 

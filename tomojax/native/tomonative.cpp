@@ -1,6 +1,6 @@
 // tomonative.cpp — native CPU engine for tomojax.
 //
-// TPU-native framework's counterpart of the reference's native CPU layer
+// The framework's counterpart of the reference's native CPU layer
 // (reference tomofusion/cpu/utils/ctvlib.cpp: Eigen sparse row-action
 // solvers over an exact ray-traced measurement matrix, OpenMP over
 // slices; and cpu/utils/pytvlib.py parallelRay: the Siddon-style matrix

@@ -1,6 +1,6 @@
 """Elementwise / reduction volume ops.
 
-TPU-native equivalents of the reference's CUDA container kernels
+Batched equivalents of the reference's CUDA container kernels
 (tomofusion/gpu/utils/container/matrix_ops.cu — norm/l1/sum, squared
 difference reductions, positivity clamp, background fill, soft threshold,
 Nesterov momentum; SURVEY.md N8/N10). There each call does its own
@@ -81,8 +81,8 @@ def poisson_noise(key, b, n_counts: int):
 
     Sampling happens on the HOST (native OpenMP C++ when available, numpy
     otherwise) like the reference's std::poisson_distribution loop:
-    `jax.random.poisson` at high count levels is a rejection sampler that
-    took minutes on the remote TPU backend for 256-class sinograms.
+    `jax.random.poisson` at high count levels is a rejection sampler
+    whose cost grows with the count level.
 
     Pod-safe sharded path (the reference's MPI design,
     mpi_astra_ctvlib.cpp:152-173: `MPI_Allreduce` of the local sums for

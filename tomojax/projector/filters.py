@@ -1,6 +1,6 @@
 """FBP/WBP filter bank (frequency-domain, batched over slices+angles).
 
-TPU-native replacement for ASTRA's `CCudaFilteredBackProjectionAlgorithm`
+Batched replacement for ASTRA's `CCudaFilteredBackProjectionAlgorithm`
 filter set used by the reference (tomofusion/gpu/utils/tomoengine.cpp:317-327
 lists the accepted names; tomofusion/pytvlib.py:33-36 exposes the commonly
 used subset). Filtering is a single batched rFFT->window->irFFT over the

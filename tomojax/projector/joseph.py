@@ -1,12 +1,12 @@
 """Batched Joseph (driving-axis, linearly-interpolated) projector pair.
 
-This is the TPU-native replacement for ASTRA's 2D parallel-beam CUDA
+This is the batched replacement for ASTRA's 2D parallel-beam CUDA
 forward/back projectors that power every algorithm in the reference
 (reference tomofusion/gpu/utils/tomoengine.cpp:109-127 forward,
 :279-291 backward, consumed per-slice from a host loop). Here the whole
 ``(Nslice, N, N)`` volume is projected in one XLA program; the slice axis is
 a pure batch axis, so it shards trivially over a device mesh (z-slab
-data-parallelism, the TPU analog of the reference's MPI slab split,
+data-parallelism, the counterpart of the reference's MPI slab split,
 mpi_astra_ctvlib.cpp:53-58).
 
 Math
@@ -35,15 +35,19 @@ construction. Adjoint consistency (``<Ax, y> == <x, A^T y>``) is enforced
 by tests (reference has this only implicitly via ASTRA; SURVEY.md §7.3
 flags it as the determinant of iterative convergence parity).
 
-Performance layout
-------------------
-Internally both operators transpose to a **slice-last** layout
-(``(step, interp, Ns)`` / ``(angle, det, Ns)``) so that every 2-point
-gather fetches a contiguous ``(Ns,)`` lane vector instead of strided
-scalars, and scan with a step/angle chunk of 1 so XLA fuses
-gather+weight+accumulate without materializing ``(angles, det, N, Ns)``
-intermediates. Measured on a v5e chip at (256, 256, 256) x 90 angles this
-is 4.9x (FP) / 3.9x (BP) faster than the slice-first formulation.
+Forms
+-----
+Three forms compute the same operator (``config.projector_mode``):
+
+* ``gather`` (this module): both operators transpose to a **slice-last**
+  layout (``(step, interp, Ns)`` / ``(angle, det, Ns)``) so every 2-point
+  gather fetches a contiguous ``(Ns,)`` vector, and scan one step/angle at
+  a time so XLA fuses gather+weight+accumulate without materializing
+  ``(angles, det, N, Ns)`` intermediates.
+* ``mxu`` (this module): the same weights as a dense banded matrix,
+  contracted with ``dot_general`` at ``config.mxu_precision``.
+* ``triton`` (projector/triton_joseph.py): the gather form as GPU kernels
+  that keep the accumulator in registers; the GPU default.
 
 Both operators are wrapped in ``jax.custom_vjp`` so autodiff through
 ``fp``/``bp`` uses the matched partner instead of differentiating the
@@ -135,11 +139,11 @@ def _fp_branch(x, cosv, sinv, row_driven: bool, nray: int):
 
 
 def _fp_branch_mxu(x, cosv, sinv, row_driven: bool, nray: int):
-    """MXU variant of `_fp_branch`: per step, build the 2-banded
-    interpolation matrix W[a, j, i] = hat(pos(a, j) - i) in registers and
-    contract it against the step plane on the MXU — turns the irregular
-    gather into a dense (Na*Nt, N) @ (N, Ns) matmul (~2.5x faster on v5e;
-    see module docstring "Performance layout")."""
+    """Matrix variant of `_fp_branch`: per step, build the 2-banded
+    interpolation matrix W[a, j, i] = hat(pos(a, j) - i) and contract it
+    against the step plane — the irregular gather becomes a dense
+    (Na*Nt, N) @ (N, Ns) matmul (N/2 wasted multiply-adds per useful one,
+    traded for matrix-unit throughput)."""
     ns, n, _ = x.shape
     na = cosv.shape[0]
     if na == 0:
@@ -185,32 +189,21 @@ def _fp_branch_mxu(x, cosv, sinv, row_driven: bool, nray: int):
     return (acc * scale[:, None, None]).transpose(2, 0, 1)
 
 
-def _sharded_mesh_for(batch: int):
-    """The in-scope slab mesh, when per-shard pallas dispatch applies:
-    slice axis divisible by the mesh size (jit would otherwise have to
-    reshard; non-divisible batches take the mxu path). Size-1 meshes
-    route through shard_map too — measured zero overhead, and it makes
-    the pod program shape compile-provable on one real chip."""
-    mesh = tjconfig.active_mesh
-    if mesh is not None and batch % mesh.size == 0:
-        return mesh
-    return None
+def _triton(kernel, arr, geom: Geometry):
+    """Run a Triton projector kernel, per z-slab under shard_map when a
+    multi-device mesh is in scope and the slice axis divides it."""
+    from tomojax.projector.triton_joseph import on_slabs
+
+    return on_slabs(lambda v: kernel(v, geom), arr, tjconfig.active_mesh)
 
 
 def _fp_impl(x, geom: Geometry, mode: str | None = None):
     """Forward projection: (Ns, N, N) -> (Ns, Nproj, Nray)."""
     mode = tjconfig.resolve_projector_mode(mode)
-    if mode == "pallas" and geom.nproj > 0:
-        mesh = _sharded_mesh_for(x.shape[0])
-        if mesh is not None:
-            from tomojax.projector.sharded import fp_sharded
+    if mode == "triton":
+        from tomojax.projector.triton_joseph import fp_triton
 
-            return fp_sharded(x, geom, mesh)
-        if tjconfig.active_mesh is not None and tjconfig.active_mesh.size > 1:
-            return _fp_impl(x, geom, "mxu")  # non-divisible batch
-        from tomojax.projector.pallas_joseph import fp_pallas
-
-        return fp_pallas(x, geom, interpret=jax.default_backend() == "cpu")
+        return _triton(fp_triton, x, geom)
     branch = _fp_branch_mxu if mode == "mxu" else _fp_branch
     rd = geom.row_driven
     p_row = branch(x, geom.cos[rd], geom.sin[rd], True, geom.nray)
@@ -268,10 +261,10 @@ def _bp_impl(y, geom: Geometry):
 
 
 def _bp_mxu(y, geom: Geometry, row_block: int = 16):
-    """MXU variant of `_bp_impl`: per (row-block, angle), build the
+    """Matrix variant of `_bp_impl`: per (row-block, angle), build the
     2-banded dual interpolation matrix W[(r, c), j] = hat((J* - j)/D)/D and
-    contract on the MXU (same trick as `_fp_branch_mxu`; exact transpose of
-    it in exact arithmetic)."""
+    contract it (same trick as `_fp_branch_mxu`; exact transpose of it in
+    exact arithmetic)."""
     ns, na, nt = y.shape
     n = geom.n
     cosv = jnp.asarray(geom.cos, jnp.float32)
@@ -333,17 +326,10 @@ def fp(x, geom: Geometry, mode: str | None = None):
 def bp(y, geom: Geometry, mode: str | None = None):
     """Matched backprojection A^T y : (Ns, Nproj, Nray) -> (Ns, N, N)."""
     mode = tjconfig.resolve_projector_mode(mode)
-    if mode == "pallas" and geom.nproj > 0:
-        mesh = _sharded_mesh_for(y.shape[0])
-        if mesh is not None:
-            from tomojax.projector.sharded import bp_sharded
+    if mode == "triton":
+        from tomojax.projector.triton_joseph import bp_triton
 
-            return bp_sharded(y, geom, mesh)
-        if tjconfig.active_mesh is not None and tjconfig.active_mesh.size > 1:
-            return _bp_mxu(y, geom)  # non-divisible batch
-        from tomojax.projector.pallas_joseph import bp_pallas
-
-        return bp_pallas(y, geom, interpret=jax.default_backend() == "cpu")
+        return _triton(bp_triton, y, geom)
     if mode == "mxu":
         return _bp_mxu(y, geom)
     return _bp_impl(y, geom)

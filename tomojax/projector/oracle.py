@@ -6,7 +6,7 @@ Siddon-style exact-intersection-length parallel-beam matrix, returned as a
 scipy sparse matrix. The reference builds this in Python and feeds it to
 the Eigen-based CPU engine (ctvlib.cpp:309-315); here its role is
 
-* the *oracle* for unit-testing the TPU Joseph projector pair (SURVEY.md §4
+* the *oracle* for unit-testing the Joseph projector pair (SURVEY.md §4
   recommends exactly this), and
 * the exact operator behind the CPU-parity ART/SIRT configurations.
 

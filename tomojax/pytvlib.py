@@ -83,7 +83,7 @@ def sart_orders():
     return ["sequential", "random"]
 
 
-def check_tpu():
+def check_devices():
     """Reference `check_cuda` analog (pytvlib.py:42-51): verify an
     accelerator (or CPU fallback) is available."""
     import jax

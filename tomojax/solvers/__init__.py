@@ -17,15 +17,9 @@ from tomojax.solvers.iterative import (
 from tomojax.solvers.wbp import fbp
 from tomojax.solvers.fista import (
     FistaState,
-    FistaStateSL,
     fista_init,
-    fista_init_sl,
     fista_run,
-    fista_run_sl,
     fista_step,
-    fista_step_sl,
-    from_sl,
-    to_sl,
 )
 from tomojax.solvers.asd_pocs import (
     AsdPocsParams,
@@ -45,15 +39,9 @@ __all__ = [
     "least_squares_step",
     "fbp",
     "FistaState",
-    "FistaStateSL",
     "fista_init",
-    "fista_init_sl",
     "fista_run",
-    "fista_run_sl",
     "fista_step",
-    "fista_step_sl",
-    "to_sl",
-    "from_sl",
     "AsdPocsParams",
     "make_asd_pocs_iteration",
     "make_asd_pocs_run",

@@ -48,20 +48,12 @@ def make_asd_pocs_iteration(sys: System, inv_col_a, ng: int):
     Host-side adaptation variant (mirrors the reference's driver loop
     structure); used by the streaming mode. For batch reconstruction use
     `make_asd_pocs_run`, which fuses the whole adaptive loop into one
-    jitted scan (no per-iteration host round trips).
-
-    The precomputed SART W tensor (pallas_sart.sart_w_operand — the
-    7.73 ms resident 'hbm' sweep) is fetched EAGERLY per call shape in
-    the host wrapper and passed as a jit ARGUMENT: captured as a
-    closure constant it would be baked into the lowering (~3 GB, the
-    remote compile service rejects it), and built inside the trace it
-    leaks the cached tracer."""
-    from tomojax.solvers.pallas_sart import sart_w_operand
+    jitted scan (no per-iteration host round trips)."""
 
     @jax.jit
-    def run(x, b, beta, dpocs, order, first=False, alpha=0.2, w_hbm=None):
+    def run(x, b, beta, dpocs, order, first=False, alpha=0.2):
         x0 = x
-        x = sart_sweep(x, b, sys, inv_col_a, beta, order, w_hbm=w_hbm)
+        x = sart_sweep(x, b, sys, inv_col_a, beta, order)
         dp = jnp.sqrt(jnp.sum((x - x0) ** 2))
         # The reference sets dPOCS = alpha * ||dx_SART|| on the first
         # iteration BEFORE its TV step (cpu/sim_ASD.py:72-76), so the
@@ -74,16 +66,7 @@ def make_asd_pocs_iteration(sys: System, inv_col_a, ng: int):
         dg = jnp.sqrt(jnp.sum((x - x1) ** 2))
         return x, dp, dd, dg, tv0, dpocs
 
-    def wrapped(x, b, beta, dpocs, order, first=False, alpha=0.2,
-                w_hbm=None):
-        if w_hbm is None and not isinstance(x, jax.core.Tracer):
-            # inside an outer trace the eager W fetch would leak a
-            # tracer into the cache — fall back to the in-kernel build
-            # there (callers that jit around this pass w_hbm themselves)
-            w_hbm = sart_w_operand(sys.geom, x.shape[0])
-        return run(x, b, beta, dpocs, order, first, alpha, w_hbm)
-
-    return wrapped
+    return run
 
 
 def make_asd_pocs_run(sys: System, inv_col_a, params: "AsdPocsParams",
@@ -99,13 +82,11 @@ def make_asd_pocs_run(sys: System, inv_col_a, params: "AsdPocsParams",
     over chunked matmuls and can take minutes to compile on backends with
     slow compilation services; `make_asd_pocs_iteration` + a host loop is
     numerically equivalent (tests/test_solvers.py) and compiles fast."""
-    from tomojax.solvers.pallas_sart import sart_w_operand
-
     p = params
     na = sys.geom.nproj
 
     @jax.jit
-    def run(x, b, key, w_hbm=None):
+    def run(x, b, key):
         seq = jnp.arange(na, dtype=jnp.int32)
 
         def body(carry, it):
@@ -116,7 +97,7 @@ def make_asd_pocs_run(sys: System, inv_col_a, params: "AsdPocsParams",
             else:
                 order = seq
             x0 = x
-            x = sart_sweep(x, b, sys, inv_col_a, beta, order, w_hbm=w_hbm)
+            x = sart_sweep(x, b, sys, inv_col_a, beta, order)
             dp = jnp.sqrt(jnp.sum((x - x0) ** 2))
             # dPOCS initialized from the first SART step magnitude,
             # before the TV descent (cpu/sim_ASD.py:72-76).
@@ -139,9 +120,4 @@ def make_asd_pocs_run(sys: System, inv_col_a, params: "AsdPocsParams",
         )
         return x, dd_vec, tv_vec
 
-    def wrapped(x, b, key, w_hbm=None):
-        if w_hbm is None and not isinstance(x, jax.core.Tracer):
-            w_hbm = sart_w_operand(sys.geom, x.shape[0])
-        return run(x, b, key, w_hbm)
-
-    return wrapped
+    return run

@@ -54,21 +54,6 @@ def sirt_sweep(x, b, sys: System, n_iter: int = 1, variant: str = "astra",
     geom = sys.geom
     if nonneg is None:
         nonneg = variant == "astra"
-    if (
-        variant == "astra"
-        and nonneg
-        and jax.default_backend() != "cpu"
-        and jax.device_count() == 1
-        and tjconfig.active_mesh is None
-        and tjconfig.resolve_projector_mode(None) == "pallas"
-    ):
-        # Single-device TPU fast path: slice-last loop with the SIRT
-        # update max(x + C A^T r, 0) fused into the BP kernel epilogue
-        # (the same fusion the FISTA fast path uses) — removes the
-        # separate full-volume elementwise pass and the four per-
-        # iteration layout transposes. Math identical to the XLA branch
-        # below; pinned by test_sirt_pallas_fast_path_matches.
-        return _sirt_sweep_pallas_sl(x, b, sys, n_iter)
     if variant == "astra":
         inv_r, inv_c = sys.inv_row, sys.inv_col
 
@@ -99,30 +84,6 @@ def sirt_sweep(x, b, sys: System, n_iter: int = 1, variant: str = "astra",
     return jax.lax.fori_loop(0, n_iter, body, x)
 
 
-def _sirt_sweep_pallas_sl(x, b, sys: System, n_iter: int,
-                          interpret: bool | None = None):
-    """Fused slice-last ASTRA-SIRT iterations (see dispatch above):
-    per iteration one FP kernel, a sinogram-sized weighted residual,
-    and one BP kernel with the update+clamp epilogue."""
-    from tomojax.projector.pallas_joseph import bp_pallas_sl, fp_pallas_sl
-
-    geom = sys.geom
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    ir = sys.inv_row[0][:, :, None]  # (Na, Nt, 1) broadcast over slices
-    ic2d = sys.inv_col[0]  # (N, N)
-    x_sl = x.transpose(1, 2, 0)
-    b_sl = b.transpose(1, 2, 0)
-
-    def body(_, xs):
-        resid = (b_sl - fp_pallas_sl(xs, geom, interpret=interpret)) * ir
-        return bp_pallas_sl(resid, geom, interpret=interpret,
-                            y_vol=xs, inv_col2d=ic2d)
-
-    x_sl = jax.lax.fori_loop(0, n_iter, body, x_sl)
-    return x_sl.transpose(2, 0, 1)
-
-
 # ----------------------------------------------------------------- SART ---
 
 
@@ -146,8 +107,7 @@ def make_sart_weights(sys: System):
     return inv_col_a
 
 
-def sart_sweep(x, b, sys: System, inv_col_a, beta=1.0, order=None,
-               w_hbm=None):
+def sart_sweep(x, b, sys: System, inv_col_a, beta=1.0, order=None):
     """One ordered pass over all angle blocks (== ASTRA SART `run(Nproj)`).
 
     order: (Na,) int32 angle visiting order (sequential = arange; random =
@@ -157,55 +117,12 @@ def sart_sweep(x, b, sys: System, inv_col_a, beta=1.0, order=None,
     ``W[j, r, c] = hat((j - J*)/D)/D`` with ``J* = x_c cos + y_r sin``),
     which is branch-free in the driving axis — the volume stays in one
     (row, col, slice) layout for the entire sweep instead of being
-    transposed per angle (the old per-angle ``lax.cond`` layout flip cost
-    two full-volume transposes per angle, ~2.3x the sweep time). Per
-    angle: one row-chunked MXU FP contraction, then an update scan that
+    transposed per angle (a per-angle ``lax.cond`` layout flip would cost
+    two full-volume transposes per angle). Per angle: one row-chunked FP
+    contraction, then an update scan that
     applies ``W^T resid`` chunk-by-chunk (same W => exact per-block
-    adjoint), with relaxation/weights/clamp per ASTRA semantics.
-
-    On a single-device TPU with the Pallas projector mode resolved, the
-    sweep dispatches to the fused Pallas kernel
-    (solvers/pallas_sart.py): the volume tile stays resident in VMEM
-    across the whole ordered angle loop, cutting the sweep's HBM
-    traffic from ~3 volume passes per angle (~17 GB) to one read+write
-    total — measured 27.6 -> 22.2 ms per 90-angle sweep at 256^3 on
-    v5e (1.24x; the kernel is now compute-bound: the ablation in
-    scripts/exp_sart_ablate.py and docs/ARCHITECTURE.md shows the hat
-    build exposed on the in-kernel fori critical path)."""
-    if (
-        jax.default_backend() != "cpu"
-        and tjconfig.resolve_projector_mode(None) == "pallas"
-    ):
-        from tomojax.solvers.pallas_sart import (
-            fits_resident, fits_vmem, sart_sweep_pallas,
-            sart_sweep_pallas_sharded,
-        )
-
-        mesh = tjconfig.active_mesh
-        # fits_vmem/fits_resident: the kernels' VMEM-resident volume
-        # cannot shrink below a 128-wide lane block, so n >= 512 can
-        # never compile — those shapes keep the XLA sweep.
-        if fits_vmem(sys.geom.n, x.shape[0]) or fits_resident(
-            sys.geom.n, x.shape[0], sys.geom.nray
-        ):
-            # Gate aligned with the SIRT/Poisson fast paths (round-4
-            # advisor): the unsharded single-device kernel only when the
-            # backend truly has one device (a multi-device backend with
-            # no registered mesh may carry a user-side device_put
-            # sharding the plain pallas_call cannot honor — that case
-            # keeps the XLA sweep, whose scan partitions fine).
-            if mesh is not None and mesh.size > 1:
-                if x.shape[0] % mesh.size == 0:
-                    return sart_sweep_pallas_sharded(
-                        x, b, sys.geom, sys.inv_row[0], inv_col_a, beta,
-                        order, mesh=mesh,
-                    )
-            elif jax.device_count() == 1:
-                return sart_sweep_pallas(
-                    x, b, sys.geom, sys.inv_row[0], inv_col_a, beta,
-                    order, w_hbm=w_hbm,
-                )
-        # too large for VMEM residency / indivisible slab: XLA path below
+    adjoint), with relaxation/weights/clamp per ASTRA semantics. The
+    contractions run at config.mxu_precision."""
     geom = sys.geom
     na, n, nt = geom.nproj, geom.n, geom.nray
     ns = x.shape[0]
@@ -221,14 +138,6 @@ def sart_sweep(x, b, sys: System, inv_col_a, beta=1.0, order=None,
     ycoord = ctr - jnp.arange(n, dtype=jnp.float32)  # y_r per row
     iota_j = jnp.arange(nt, dtype=jnp.float32)
     prec = tjconfig.mxu_precision
-
-    # Iteration precision follows the projector fast path: on a
-    # single-device TPU (resolved 'pallas' mode) the contractions run at
-    # pallas_precision (bf16 DEFAULT) — measured convergence-equivalent
-    # (SART rmse@10 at 256^3 x 90: 0.0470809 vs 0.0470812 at HIGH) at
-    # 27.6 vs 43.2 ms/sweep; CPU and sharded meshes keep mxu_precision.
-    if tjconfig.resolve_projector_mode(None) == "pallas":
-        prec = tjconfig.pallas_precision
 
     ch = 32
     while n % ch:
@@ -396,42 +305,11 @@ def poisson_ml_step(x, b, sys: System, lam):
     Returns (x_new, kl_cost). b must be pre-normalized to max <= 1
     (tomoengine.cpp:245, done by the API layer)."""
     geom = sys.geom
-    if (
-        jax.default_backend() != "cpu"
-        and jax.device_count() == 1
-        and tjconfig.active_mesh is None
-        and tjconfig.resolve_projector_mode(None) == "pallas"
-    ):
-        return _poisson_ml_step_pallas_sl(x, b, sys, lam)
     ax = fp(x, geom)
     upd = bp((ax - b) / (ax + POISSON_EPS), geom)
     x = jnp.maximum(x - (lam / sys.lipschitz) * upd, 0.0)
     cost = jnp.sum(ax - b * jnp.log(ax + POISSON_EPS))
     return x, cost
-
-
-def _poisson_ml_step_pallas_sl(x, b, sys: System, lam,
-                               interpret: bool | None = None):
-    """Single-device TPU fast path: the update max(x - (lam/L) A^T r, 0)
-    is the BP kernel's fused SIRT epilogue max(y + C.A^T r, 0) with
-    y = x and a constant negative column scale C = -(lam/L) — same
-    kernel, no extra elementwise volume pass. Pinned by
-    test_poisson_pallas_fast_path_matches."""
-    from tomojax.projector.pallas_joseph import bp_pallas_sl, fp_pallas_sl
-
-    geom = sys.geom
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    x_sl = x.transpose(1, 2, 0)
-    b_sl = b.transpose(1, 2, 0)
-    ax_sl = fp_pallas_sl(x_sl, geom, interpret=interpret)
-    ratio = (ax_sl - b_sl) / (ax_sl + POISSON_EPS)
-    neg_scale = jnp.full((geom.n, geom.n), -lam / sys.lipschitz,
-                         jnp.float32)
-    x_new = bp_pallas_sl(ratio, geom, interpret=interpret,
-                         y_vol=x_sl, inv_col2d=neg_scale)
-    cost = jnp.sum(ax_sl - b_sl * jnp.log(ax_sl + POISSON_EPS))
-    return x_new.transpose(2, 0, 1), cost
 
 
 # ------------------------------------------------- least squares ----------

@@ -1,10 +1,10 @@
 """3D/4D total-variation value, subgradient descent, and FGP prox.
 
-TPU-native equivalents of the reference CUDA regularizer kernels
+Batched equivalents of the reference CUDA regularizer kernels
 (tomofusion/gpu/utils/regularizers/tv_gd.cu, tv_fgp.cu and the 4D
 per-element wrappers in chemistry/utils/regularizers/ — SURVEY.md N9/N11).
 Everything is expressed with `jnp.roll`/slicing stencils that XLA fuses;
-on a z-slab-sharded volume the axis-0 shifts lower to ICI
+on a z-slab-sharded volume the axis-0 shifts lower to
 collective-permutes, which *is* the halo exchange the reference does by
 hand with MPI_Isend/MPI_Recv (mpi_astra_ctvlib.cpp:360-386).
 
@@ -44,23 +44,7 @@ def tv(x):
     """Isotropic TV value with periodic BCs (tv_gd.cu:27-47).
 
     x: (..., nx, ny, nz) — reduces over the last three axes and any batch.
-    On a single-device TPU backend 3D/4D inputs route to the one-pass
-    Pallas kernel (tv/pallas_tv_value.py, ~1e-6-relative reduction-order
-    difference); the XLA stencil remains the sharded/CPU path.
     """
-    from tomojax import config as tjconfig
-
-    if (
-        x.ndim in (3, 4)
-        and tjconfig.use_pallas_tv()
-        and (tjconfig.active_mesh is None or tjconfig.active_mesh.size <= 1)
-    ):
-        # single-device only: under a multi-device mesh the XLA stencil
-        # (whose rolls lower to halo collectives) is the sharded path —
-        # a plain pallas_call has no partitioning rule
-        from tomojax.tv.pallas_tv_value import tv_value_pallas
-
-        return tv_value_pallas(x)
     a = x.ndim
     ip = _roll3(x, -1, a - 3)
     jp = _roll3(x, -1, a - 2)
@@ -101,12 +85,9 @@ def tv_gd(x, ng: int, dpocs, axis_norm=None, compat: str = "global"):
     the gradient norm is reduced; None = all axes (matches single-process
     reference; per-element 4D passes the last three).
 
-    Dispatches to the fused Pallas gradient kernel on a single-device TPU
-    backend, and to the shard_map per-slab kernel + periodic ppermute
-    halo ring under a registered multi-device mesh
-    (tv/pallas_tvgd_sharded.py); identical output (global psum norm —
-    the documented deviation from the reference's local-norm behavior,
-    SURVEY.md §3.3).
+    On a slab-sharded volume the rolls lower to halo collectives and the
+    norm to a global psum (the documented deviation from the reference's
+    local-norm behavior, SURVEY.md §3.3).
 
     compat='reference-mpi' (3D, axis_norm=None, multi-device mesh in
     scope): reproduce the reference's multi-rank semantics instead of
@@ -135,28 +116,6 @@ def tv_gd(x, ng: int, dpocs, axis_norm=None, compat: str = "global"):
             return _tv_gd_reference_mpi(x, ng, dpocs, mesh)
         # single shard: the reference's nproc==1 path is plain periodic
         # GD with the (now-global) local norm — identical to the default
-    if x.ndim == 3 and axis_norm is None:
-        mesh = tjconfig.sharded_pallas_tv_mesh(x.shape[0])
-        if mesh is not None:
-            from tomojax.tv.pallas_tvgd_sharded import tv_gd_sharded
-
-            return tv_gd_sharded(x, ng, dpocs, mesh)
-    if x.ndim == 4 and axis_norm == (1, 2, 3):
-        mesh = tjconfig.sharded_pallas_tv_mesh(x.shape[1])
-        if mesh is not None:
-            # per-element 3D kernels, element axis mapped (the 4D TV-GD
-            # norm is per element — exactly what the per-element sharded
-            # kernel's global psum computes for each map slice)
-            from tomojax.tv.pallas_tvgd_sharded import tv_gd_sharded
-
-            x_new, tv0 = jax.lax.map(
-                lambda xe: tv_gd_sharded(xe, ng, dpocs, mesh), x
-            )
-            return x_new, jnp.sum(tv0)
-    if x.ndim == 3 and axis_norm is None and tjconfig.use_pallas_tv():
-        from tomojax.tv.pallas_tvgd import tv_gd_pallas
-
-        return tv_gd_pallas(x, ng, dpocs)
     tv0 = tv(x)
 
     def body(_, xx):
@@ -213,7 +172,8 @@ def _tv_gd_reference_mpi(x, ng: int, dpocs, mesh):
 def _fdiff(d, axis):
     """Forward difference with zero at the far boundary (tv_fgp.cu:79-88).
 
-    Slice+concat form (no roll / scatter) — fuses better on TPU."""
+    Slice+concat form (no roll / scatter), which XLA fuses into the
+    surrounding elementwise chain."""
     nd = d.ndim
     sl_main = [slice(None)] * nd
     sl_main[axis] = slice(0, -1)
@@ -247,59 +207,9 @@ def tv_fgp(x, n_iter: int, lam):
     Returns (denoised, tv_of_input). See module docstring for the
     deliberate quirks (1/(26 lam) dual step, no momentum, nonneg clamp).
 
-    Dispatches to the fused Pallas kernels (tv/pallas_fgp.py) on a
-    single-device TPU backend (tomojax.config.tv_impl); identical output
-    up to the dual-storage dtype: with the default bf16 duals
-    (config.fgp_dual_dtype) the single-device TPU result differs from the
-    CPU/sharded XLA result by up to ~lam*1e-2 absolute. For strict
-    cross-backend parity set
-    ``tomojax.config.set_tv_impl('auto', dual_dtype='float32')``.
+    3D or 4D (element axis first: the stencils never cross it, as in the
+    reference's per-element chemistry tv_fgp.cu:192-287). Duals are f32.
     """
-    from tomojax import config as tjconfig
-
-    if x.ndim == 3:
-        mesh = tjconfig.sharded_pallas_tv_mesh(x.shape[0])
-        if mesh is not None:
-            # z-slab-sharded volume: per-shard fused kernels with a
-            # 1-plane ppermute halo per iteration (the reference's MPI
-            # halo ring, mpi_astra_ctvlib.cpp:360-386)
-            from tomojax.tv.pallas_fgp_sharded import tv_fgp_sharded
-
-            return tv_fgp_sharded(x, n_iter, lam, mesh)
-    if x.ndim == 3 and tjconfig.use_pallas_tv():
-        from tomojax.tv.pallas_fgp import tv_fgp_pallas_fused
-
-        return tv_fgp_pallas_fused(x, n_iter, lam)
-    if x.ndim == 4:
-        mesh = tjconfig.sharded_pallas_tv_mesh(x.shape[1])
-        if mesh is not None:
-            # 4D chemistry stack sharded on the slice axis (axis 1): map
-            # the per-shard fused kernels over the element batch axis —
-            # the reference's 4D TV is per-element 3D TV (chemistry
-            # tv_fgp.cu:192-287), and its multi-GPU variant keeps the
-            # same per-element loop (multigpufusion.cpp).
-            from tomojax.tv.pallas_fgp_sharded import tv_fgp_sharded
-
-            d, tv0 = jax.lax.map(
-                lambda xe: tv_fgp_sharded(xe, n_iter, lam, mesh), x
-            )
-            return d, jnp.sum(tv0)
-    if x.ndim == 4 and tjconfig.use_pallas_tv():
-        # element axis is a pure batch axis for the stencil (reference 4D
-        # TV runs the 3D kernels per element and sums the TV value,
-        # chemistry/utils/regularizers/tv_fgp.cu:192-287). MEASURED
-        # dispatch choice (v5e, Nel=3 x 128x256^2, bf16 duals): lax.map
-        # of per-element kernel chains runs at the HBM roofline
-        # (0.39 ms/iter over the whole stack); folding the element axis
-        # into the pallas grid (tv_fgp_pallas_fused on the 4D array,
-        # grid (nel, nblk)) measured 2.0x SLOWER (0.79 ms/iter) — the
-        # multi-element grid defeats Mosaic's block pipelining. Keep map.
-        from tomojax.tv.pallas_fgp import tv_fgp_pallas_fused
-
-        d, tv0 = jax.lax.map(
-            lambda xe: tv_fgp_pallas_fused(xe, n_iter, lam), x
-        )
-        return d, jnp.sum(tv0)
     a = x.ndim
     ax = (a - 3, a - 2, a - 1)
     tv0 = tv(x)
